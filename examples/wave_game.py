@@ -6,15 +6,15 @@ Python binding: its observation is a 16-float cosine wave
 ``obs[i] = cos(t + 0.5 * i)``, its reward is ``sin(t)``, time advances
 by 0.25 per step, and it terminates once ``t >= 10`` (test_env.c:85-105).
 
-This module is the TPU-native counterpart: the same behavior expressed
+This module is the JAX counterpart: the same behavior expressed
 through the game-module protocol (`procgen2_tpu/core/env.py:16-24`).
 Implement these nine names and every framework facility — batching,
 auto-reset level banks, mesh sharding, checkpointing, the Gymnasium
 adapter — works on your game unchanged:
 
     Config      frozen dataclass (hashable; static jit argument)
-    Level       flax.struct pytree of per-episode static data
-    State       flax.struct pytree of dynamic state (holds its Level)
+    Level       struct.dataclass pytree of per-episode static data
+    State       struct.dataclass pytree of dynamic state (holds its Level)
     generate(cfg, key) -> Level
     reset(cfg, level, key) -> State
     step(cfg, state, action) -> (State, reward, terminated, info)
@@ -38,9 +38,9 @@ from __future__ import annotations
 import dataclasses
 
 import jax.numpy as jnp
-from flax import struct
 
 from procgen2_tpu.core import spaces
+from procgen2_tpu.utils import struct
 
 NAME = "wave"
 RES = 64  # framework obs resolution (the C example renders 8x8 gray)

@@ -1,12 +1,12 @@
-"""procgen2_tpu: TPU-native procedurally-generated RL environment suite.
+"""procgen2_tpu: procedurally-generated RL environment suite in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 Farama-Foundation/Procgen2 (reference mounted read-only at /root/reference):
 the 7 games (coinrun, maze, chaser, jumper, climber, caveflyer, bossfight),
 their seeded level generators, physics, rewards, terminations, 64x64 RGB
 observations and the Gymnasium-style API surface — redesigned as pure,
 batched, jit-compiled state transitions over device-resident level banks,
-sharded across TPU meshes.
+sharded across device meshes (one GPU or several).
 
 Quick start:
     import jax, procgen2_tpu as pg

@@ -1,7 +1,7 @@
 """Core environment API: pure-functional, batched, auto-resetting.
 
 Replaces the reference's CEnv C ABI + per-process Gymnasium wrapper
-(`cenv/cenv.h:121-133`, `cenv/cenv.py:152-380`) with a TPU-native design:
+(`cenv/cenv.h:121-133`, `cenv/cenv.py:152-380`) with a batched JAX design:
 
 * Env state is an explicit pytree (checkpointing is therefore free — the
   reference keeps state in C++ globals and cannot export it, SURVEY.md §5).
@@ -15,8 +15,8 @@ Replaces the reference's CEnv C ABI + per-process Gymnasium wrapper
 
 A game module provides:
     Config      frozen dataclass (hashable; used as a static jit argument)
-    Level       flax.struct pytree of per-episode static data
-    State       flax.struct pytree of dynamic state (holds its Level copy)
+    Level       utils.struct.dataclass pytree of per-episode static data
+    State       utils.struct.dataclass pytree of dynamic state (holds its Level copy)
     generate(cfg, key) -> Level
     reset(cfg, level, key) -> State
     step(cfg, state, action) -> (State, reward f32, terminated bool, info dict)
@@ -30,7 +30,7 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import tree_select
 from ..utils.tree import bank_gather
@@ -160,8 +160,8 @@ class Environment:
 
     def _observe_batch(self, game_states):
         """Batched rendering; games may provide an `observe_batch` that
-        exploits cross-env structure (shared cameras, fused compositing
-        kernels) instead of a plain vmap. Game `observe_batch` functions
+        exploits cross-env structure (shared cameras, batched stamp
+        compositing) instead of a plain vmap. Game `observe_batch` functions
         return planar uint8 [N, 3, OBS, OBS]; the requested layout
         (`obs_format`) is applied here, in one place."""
         fn = getattr(self.game, "observe_batch", None)
@@ -201,8 +201,7 @@ class Environment:
         rng, k_lvl, k_reset = jax.random.split(state.rng, 3)
         num_levels = jax.tree.leaves(bank)[0].shape[0]
         idx = jax.random.randint(k_lvl, (), 0, num_levels)
-        # bank_gather: one-hot matmul over byte planes — bit-exact and
-        # ~40 ms/step cheaper than vmapped row gathers at batch 4096
+        # bank_gather: one-hot matmul over byte planes (bit-exact)
         level = bank_gather(bank, idx)
         fresh = self.game.reset(self.cfg, level, k_reset)
         gs = tree_select(terminated, fresh, gs)

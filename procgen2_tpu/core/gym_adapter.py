@@ -7,7 +7,7 @@ reseeding, manual episode resets. This adapter reproduces that interface
 over the batched JAX engine with num_envs=1, so reference users can
 switch by replacing `CEnv("libMaze.so")` with `GymEnv("maze")`.
 
-It is intentionally a *compatibility shim*: training at TPU scale should
+It is intentionally a *compatibility shim*: training at batch scale should
 use `procgen2_tpu.make` / `procgen2_tpu.dist.make_vec` directly.
 """
 from __future__ import annotations

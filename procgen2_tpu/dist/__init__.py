@@ -2,7 +2,7 @@
 
 The reference is single-process, single-env (SURVEY.md §2.5: globals at
 games/*/coinrun.cpp:15-21 and ecs.cpp:97 make even two envs per process
-impossible). The entire scaling story here is new, TPU-native design:
+impossible). The entire scaling story here is new design:
 env batches sharded over a `jax.sharding.Mesh`, XLA collectives for
 metric reductions, multi-host init via `jax.distributed`.
 """

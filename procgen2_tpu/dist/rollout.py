@@ -1,9 +1,9 @@
 """On-device rollout collection: `lax.scan` over time, sharded over envs.
 
-The TPU-native replacement for the reference's Python stepping loop
+The on-device replacement for the reference's Python stepping loop
 (`game_test.py:17-30` steps one env at a time across the ctypes FFI): a
 single jit program advances the whole sharded batch T steps and
-materializes a [T, N, ...] trajectory buffer in HBM, ready for a
+materializes a [T, N, ...] trajectory buffer in device memory, ready for a
 co-located PPO/IMPALA learner — observations never touch the host.
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Any, Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 
 @struct.dataclass

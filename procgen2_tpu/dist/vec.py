@@ -1,4 +1,4 @@
-"""Sharded vectorized environments over a TPU device mesh.
+"""Sharded vectorized environments over a device mesh.
 
 Design (SURVEY.md §2.5 / §7.5): the env batch is data-parallel over a
 1-D `env` mesh axis; the level bank is replicated (it is read-only and
@@ -7,9 +7,10 @@ produced and observations consumed on-device by a co-located learner, so
 steady state requires zero host<->device transfer; only scalar metrics
 cross, reduced with XLA collectives.
 
-Unlike the reference's NCCL-free single-process design, nothing here
-hand-schedules communication: shardings are annotated and XLA inserts
-the collectives over ICI.
+Nothing here hand-schedules communication: shardings are annotated and
+XLA inserts the collectives (NCCL over NVLink between the cards of one
+host). The mesh is 1-D over `jax.devices()`: every card reaches every
+other at the same rate, so no axis order matters.
 """
 from __future__ import annotations
 

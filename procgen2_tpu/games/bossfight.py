@@ -1,6 +1,6 @@
 """Bossfight: bullet-hell duel against a phase-shifting boss ship.
 
-TPU-native re-implementation of `/root/reference/games/bossfight/`:
+JAX re-implementation of the reference's `games/bossfight/`:
   * arena — no tilemap; a fixed 4x4-unit screen rect centered at the
     origin (camera_size / camera_scale * pixels_to_unit, zoom 1.0,
     bossfight.cpp:32, common_systems.cpp:227-228, 512-515); agent clamped
@@ -39,7 +39,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..core import spaces
 from ..physics.aabb import check_collision
@@ -286,8 +286,7 @@ def _ring_push(pos, vel, rot, frame, num, nxt, new_pos, new_vel, new_rot, cond,
     """fire() (common_systems.cpp:75-87): append when cond & num < size.
 
     The slot write is a one-hot mask, not `.at[slot].set` — under vmap a
-    traced-index update lowers to a batched scatter, the slow TPU path
-    (measured: the 8-push volley loop made bossfight scatter-bound)."""
+    traced-index update lowers to a batched scatter."""
     can = cond & (num < size)
     upd = can & (jnp.arange(size) == nxt)
     pos = jnp.where(upd[:, None], new_pos[None, :], pos)
@@ -767,7 +766,7 @@ ROT_BINS = 16  # boss-bullet rotation quantization for the stamp bank
 
 @functools.lru_cache(maxsize=None)
 def _stamp_banks():
-    """Pre-rasterized patch banks (see compositor.stamps_from_pixel_bank).
+    """Pre-rasterized patch banks (see compositor.composite_stamps).
 
     Rotated boss bullets (bossfight renders each bullet rotated to its
     heading) become 16 pre-rasterized rotation variants per bolt color —
@@ -792,7 +791,7 @@ def _stamp_banks():
         + [(f"explosion{i}", 0.19 * PPU, 0.19 * PPU) for i in range(5)]
     )
     # patch=8 (content is ~3 px): lets the player-bullet pool share one
-    # kernel pass with the P=8 ship bank (z-adjacent: the reference's
+    # stamp group with the P=8 ship bank (z-adjacent: the reference's
     # agent render draws bullets then the ship, common_systems.cpp:699)
     ab_bank = A.build_pixel_bank(ab_specs, patch=8)
 
@@ -815,7 +814,7 @@ def _stamp_banks():
     # P=40 variant per ship color — alpha compositing is associative,
     # so (shield over boss) over frame == shield over (boss over
     # frame) exactly (up to the bank's u8 rounding). Halves the
-    # largest per-env stamp work and drops a kernel frame round trip.
+    # largest per-env stamp work and drops one stamp group.
     boss40 = A.build_pixel_bank(
         tuple(
             (f"boss_ship_{k}", 1.66 * PPU, 1.25 * PPU)
@@ -881,25 +880,16 @@ def _r0c0(cx, cy, P):
 
 
 def _cull_alive(k, alive, var, x, y):
-    """Compact a mostly-dead slot pool to its top-k alive slots.
-
-    The stamp kernel pays a scalar-loop iteration per SLOT (dead ones
-    only branch, but bossfight's 64-slot bullet ring plus the 32-slot
-    player ring made ~111 iterations/env while ~15 are live — the
-    kernel custom-call profiled 16.7 of 22.3 ms/step @4096). top_k on
-    the alive mask is stable, so surviving slots keep their relative
-    (painter) order; var/positions ride one-hot selects (f32 for the
-    positions — bf16 would wobble the pixel rounding)."""
-    M = alive.shape[1]
+    """Compact a mostly-dead slot pool to k slots that hold every alive
+    one while at most k are alive (stamp cost scales with the slot
+    count: bossfight's 64-slot bullet ring and 32-slot player ring
+    carry ~15 live bullets). top_k on the alive mask keeps the
+    lowest-index alive slots, in slot (painter) order; an overflow
+    drops the highest-index ones. The slots are selected by index, so
+    the f32 positions pass through exactly."""
     _, ids = jax.lax.top_k(alive.astype(jnp.float32), k)
-    oh = (ids[..., None] == jnp.arange(M)).astype(jnp.float32)
-    sel_alive = jnp.einsum("nkm,nm->nk", oh, alive.astype(jnp.float32)) > 0.5
-    sel_var = jnp.round(
-        jnp.einsum("nkm,nm->nk", oh, var.astype(jnp.float32))
-    ).astype(jnp.int32)
-    sel_x = jnp.einsum("nkm,nm->nk", oh, x)
-    sel_y = jnp.einsum("nkm,nm->nk", oh, y)
-    return sel_alive, sel_var, sel_x, sel_y
+    pick = functools.partial(jnp.take_along_axis, indices=ids, axis=1)
+    return pick(alive), pick(var).astype(jnp.int32), pick(x), pick(y)
 
 
 def observe_batch(cfg: Config, states: State):
@@ -920,9 +910,9 @@ def observe_batch(cfg: Config, states: State):
 
     # barriers (bossfight.cpp:480: sprite offset -0.15, scale 0.3) and
     # boss bullets / their explosions (rotation-quantized variants):
-    # adjacent in z-order and both P=8, so they share ONE kernel pass
-    # (slot order = painter order; each composite call costs an img
-    # round trip, so merging adjacent same-P groups is a direct save)
+    # adjacent in z-order and both P=8, so they share ONE stamp group
+    # (each composite call costs a frame round trip, so merging
+    # adjacent same-P groups is a direct save)
     blank = jnp.broadcast_to(level.barrier_tex.astype(jnp.int32), (N, 4)) \
         if level.barrier_tex.ndim == 1 else level.barrier_tex.astype(jnp.int32)
     bwin = jax.vmap(_window, in_axes=(0, 0, None))(
@@ -954,7 +944,7 @@ def observe_batch(cfg: Config, states: State):
     )
 
     # boss ship (+ pre-composed shield variant during shielded phases:
-    # one stamp + one kernel pass instead of two, exact — see
+    # one stamp + one stamp group instead of two, exact — see
     # _stamp_banks)
     bvar = (level.boss_tex.astype(jnp.int32)
             + jnp.where(states.phase_index % 2 == 0, 4, 0))[:, None]

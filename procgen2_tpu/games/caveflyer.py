@@ -1,6 +1,6 @@
 """Caveflyer: Asteroids-style ship in a cave — fly to the green UFO.
 
-TPU-native re-implementation of `/root/reference/games/caveflyer/`:
+JAX re-implementation of the reference's `games/caveflyer/`:
   * level generation — pure cellular-automata cave (uniform 50% seed, 2 CA
     passes, largest connected room), random distinct goal/agent cells, BFS
     path, non-memory prune to the path Moore-dilated 4x, then 3 object
@@ -41,7 +41,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..core import spaces
 from ..gen.kruskal import masked_uniform_cell
@@ -51,7 +51,7 @@ from ..physics.aabb import check_collision
 from ..render import atlas as atlas_lib
 from ..render import compositor as C
 from ..render import phases as phases_lib
-from ..render import scene_kernel
+from ..render import scene as scene_lib
 
 NAME = "caveflyer"
 NUM_ACTIONS = 15
@@ -83,7 +83,7 @@ _LUT_WALL = np.array([NONE, FULL], np.int32)  # wall -> full
 @dataclasses.dataclass(frozen=True)
 class Config:
     mode: str = "easy"
-    # Render-only camera phase quantization for the fused scene kernel
+    # Render-only camera phase quantization for the scene compositor
     # (render/phases.py); 0 = exact continuous camera (slow path).
     scene_phases: int = 4
 
@@ -373,8 +373,7 @@ def step(cfg: Config, state: State, action):
         dirx, diry = jnp.cos(n_rot), jnp.sin(n_rot)
 
         # fire / spawn bullet (common_systems.cpp:131-147); slot update is
-        # a one-hot mask, not a scatter (vmapped scatters are the slow
-        # path on TPU)
+        # a one-hot mask, not a scatter
         can_spawn = fire & (bullet_timer == 0.0) & (num_b < NUM_BULLETS)
         upd = can_spawn & (jnp.arange(NUM_BULLETS) == next_b)
         b_rot_n = jnp.where(upd, n_rot, b_rot)
@@ -659,7 +658,7 @@ def _stamp_banks():
     """Pre-rasterized stamp banks; rotation (ship/bullets/particles)
     becomes a quantized variant index instead of the per-pixel rotated
     gather that made this game ~1000x slower than maze (see
-    compositor.stamps_from_pixel_bank)."""
+    compositor.composite_stamps)."""
     import math
 
     A = atlas_lib
@@ -705,8 +704,8 @@ def _stamp_banks():
 
 @functools.lru_cache(maxsize=None)
 def _scene_assets(qp, D):
-    """Single-kind tile phase bank + padded content for the fused scene
-    kernel (render/scene_kernel.py; see coinrun._scene_assets)."""
+    """Single-kind tile phase bank + padded content for the
+    quantized-camera scene (render/scene.py; see coinrun._scene_assets)."""
     A = _assets()
     atlas_s = np.asarray(A["atlas_p"]).transpose(1, 0, 2, 3)
     tex = atlas_s[A["idx"]["cave_wall"]][None]
@@ -717,9 +716,7 @@ def _scene_assets(qp, D):
     bgpad = np.zeros((bgs.shape[1], 3, GP, GP), np.uint8)
     n = min(64, GP - W)
     bgpad[:, :, W:W + n, W:W + n] = bgs.transpose(1, 0, 2, 3)[:, :, :n, :n]
-    TR, _, _ = phases_lib.phase_tables(PPU, 64, qp)
-    return dict(bank=bank, kinds=(1,), themes=(-1,),
-                bgpad=bgpad, TRtab=TR[:, None, :].astype(np.int32), win=W)
+    return dict(bank=bank, kinds=(1,), themes=(-1,), bgpad=bgpad, win=W)
 
 
 def observe_batch(cfg: Config, states: State):
@@ -852,40 +849,12 @@ def observe_batch(cfg: Config, states: State):
         _, _, t0_off = phases_lib.phase_tables(PPU, 64, qp)
         tx0 = jnp.floor(cam[:, 0] + jnp.float32(t0_off)).astype(jnp.int32)
         ty0 = jnp.floor(cam[:, 1] + jnp.float32(t0_off)).astype(jnp.int32)
-        GP = D + 2 * W
         gridp = jnp.pad(level.wall.astype(jnp.int8),
                         ((0, 0), (W, W), (W, W)), constant_values=0)
-        theme = jnp.zeros((N,), jnp.int32)
-        bg_i = level.bg_index.astype(jnp.int32)
-        tb = jnp.asarray(SA["bank"])
-        if C._use_stamp_kernel():
-            img = scene_kernel.scene_tpu_raw(
-                gridp, ty0, tx0, jy, jx, bg_i, theme, SA["bgpad"],
-                SA["TRtab"], tb, SA["kinds"], SA["themes"],
-                scene_groups, C.OBS, qp, W)
-        else:
-            gwin = jax.vmap(
-                lambda g, y, x: jax.lax.dynamic_slice(
-                    g, (y + W, x + W), (W, W))
-            )(gridp, ty0, tx0)
-            bgpad = jnp.asarray(SA["bgpad"])
-            bgwin = jax.vmap(
-                lambda b, y, x: jax.lax.dynamic_slice(
-                    bgpad, (b, 0, y + W, x + W), (1, 3, W, W))[0]
-            )(bg_i, ty0, tx0)
-            win_c = jnp.concatenate(
-                [gwin[:, None].astype(jnp.bfloat16),
-                 bgwin.astype(jnp.bfloat16)], 1)
-            EyTab, ExTab = phases_lib.expansion_tables(PPU, 64, qp, win_size=W)
-            Ey = jnp.asarray(EyTab, jnp.bfloat16)[jy]
-            Ex = jnp.asarray(ExTab, jnp.bfloat16)[jx]
-            rows = jnp.einsum("nri,ncij->ncrj", Ey, win_c,
-                              preferred_element_type=jnp.bfloat16)
-            X = jnp.einsum("ncrj,nju->ncru", rows, Ex,
-                           preferred_element_type=jnp.bfloat16)
-            img = scene_kernel.scene_reference(
-                X, jy * qp + jx, theme, tb, SA["kinds"], SA["themes"],
-                scene_groups, C.OBS)
+        img = scene_lib.render_scene(
+            gridp, SA["bgpad"], ty0, tx0, jy, jx,
+            level.bg_index.astype(jnp.int32), jnp.zeros((N,), jnp.int32),
+            SA["bank"], SA["kinds"], SA["themes"], scene_groups, PPU, qp, W)
 
     obs = jnp.clip(jnp.round(img), 0, 255).astype(jnp.uint8)
     return obs  # planar u8 [N, 3, OBS, OBS]; layout applied by the Environment

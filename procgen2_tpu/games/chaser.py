@@ -1,6 +1,6 @@
 """Chaser: Pac-Man-style maze — eat pellets, dodge enemies, orbs flip the hunt.
 
-TPU-native re-implementation of `/root/reference/games/chaser/`:
+JAX re-implementation of the reference's `games/chaser/`:
   * level generation — Kruskal maze (set-merge variant, equivalent to the
     union-find Kruskal in gen/kruskal.py), 4 quadrants with 1 orb each
     (+-1 extra in extreme/hard), 3-5 enemy eggs + agent start on distinct
@@ -41,7 +41,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..core import spaces
 from ..gen.kruskal import kruskal_maze, masked_uniform_cell
@@ -274,8 +274,8 @@ def _wall_at(wall, cx, ry):
     purposes (tilemap get() returns out_of_bounds, which != empty).
 
     `cx`/`ry` may carry leading dims (stacked probes). The lookup is an
-    elementwise one-hot reduce over the small grid — vmapped gathers are
-    the slow TPU path, and D <= 19 makes the dense form ~free.
+    elementwise one-hot reduce over the small grid (D <= 19 makes the
+    dense form cheap).
     """
     D = wall.shape[0]
     ohr = jnp.arange(D) == ry[..., None]

@@ -1,6 +1,6 @@
 """Climber: vertical platformer — climb platforms, collect crystals.
 
-TPU-native re-implementation of `/root/reference/games/climber/`:
+JAX re-implementation of the reference's `games/climber/`:
   * level generation — 20x64 vertical world, difficulty-scaled platform
     ladder walked upward with physics-bounded dy, crystals on ~50% of
     platforms (always the topmost), flying patrol enemies
@@ -29,7 +29,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..core import spaces
 from ..physics.tiles import resolve_tile_collisions, NONE, FULL
@@ -37,7 +37,7 @@ from ..physics.aabb import check_collision
 from ..render import atlas as atlas_lib
 from ..render import compositor as C
 from ..render import phases as phases_lib
-from ..render import scene_kernel
+from ..render import scene as scene_lib
 
 NAME = "climber"
 NUM_ACTIONS = 15
@@ -79,7 +79,7 @@ _LUT_WALL = np.array([NONE, FULL, FULL], np.int32)
 @dataclasses.dataclass(frozen=True)
 class Config:
     easy_mode: bool = False  # enemy_prob .2 vs .5, tilemap.cpp:118
-    # Render-only camera phase quantization for the fused scene kernel
+    # Render-only camera phase quantization for the scene compositor
     # (render/phases.py); 0 = exact continuous camera (slow path).
     scene_phases: int = 4
 
@@ -476,7 +476,7 @@ def action_space(cfg: Config):
 
 @functools.lru_cache(maxsize=None)
 def _stamp_banks():
-    """Pixel-snapped patch banks (compositor.stamps_from_pixel_bank)."""
+    """Pixel-snapped patch banks (compositor.composite_stamps)."""
     A = atlas_lib
     u = PPU  # 1 world unit in obs pixels (3.2 at zoom 0.2)
     specs = [("crystal", u, u)]
@@ -496,8 +496,8 @@ def _stamp_banks():
 
 @functools.lru_cache(maxsize=None)
 def _scene_assets(qp):
-    """Tile-entry phase bank + padded content for the fused scene
-    kernel (render/scene_kernel.py; see coinrun._scene_assets). The
+    """Tile-entry phase bank + padded content for the quantized-camera
+    scene (render/scene.py; see coinrun._scene_assets). The
     0.2-zoom camera shows ~20 tiles, so the window span comes from
     phases.win (21 at qp=4) rather than the default 16."""
     A = _assets()
@@ -516,15 +516,14 @@ def _scene_assets(qp):
     bgpad = np.zeros((NUM_BGS, 3, GP, GP), np.uint8)
     n = min(64, GP - W)
     bgpad[:, :, W:W + n, W:W + n] = bgs.transpose(1, 0, 2, 3)[:, :, :n, :n]
-    TR, _, _ = phases_lib.phase_tables(PPU, 64, qp)
     return dict(bank=bank, kinds=tuple(kinds), themes=tuple(themes),
-                bgpad=bgpad, TRtab=TR[:, None, :].astype(np.int32), win=W)
+                bgpad=bgpad, win=W)
 
 
 def _observe_scene(cfg: Config, states: State):
     """Quantized-camera scene path (see coinrun._observe_scene): bg +
     themed walls + one merged crystal/mob/agent stamp group in a single
-    Pallas pass. The x camera is FIXED at map center (climber.cpp:464),
+    scene pass. The x camera is FIXED at map center (climber.cpp:464),
     so only the y phase varies per env."""
     A = _assets()
     banks = _stamp_banks()
@@ -582,42 +581,16 @@ def _observe_scene(cfg: Config, states: State):
         [np.asarray(banks["moving"]), np.asarray(banks["agent"])], axis=0)
     groups = [(C._premultiply_bank(merged_bank), vars_,
                alives.astype(jnp.float32), r0, c0)]
-    theme = level.theme.astype(jnp.int32)
-    bg_i = level.bg_index.astype(jnp.int32)
-    tb = jnp.asarray(SA["bank"])
-    if C._use_stamp_kernel():
-        img = scene_kernel.scene_tpu_raw(
-            gridp, ty0, tx0, jy, jx, bg_i, theme, SA["bgpad"],
-            SA["TRtab"], tb, SA["kinds"], SA["themes"],
-            groups, C.OBS, qp, W)
-    else:
-        gwin = jax.vmap(
-            lambda g, y, x: jax.lax.dynamic_slice(g, (y + W, x + W), (W, W))
-        )(gridp, ty0, tx0)
-        bgpad = jnp.asarray(SA["bgpad"])
-        bgwin = jax.vmap(
-            lambda b, y, x: jax.lax.dynamic_slice(
-                bgpad, (b, 0, y + W, x + W), (1, 3, W, W))[0]
-        )(bg_i, ty0, tx0)
-        win_c = jnp.concatenate(
-            [gwin[:, None].astype(jnp.bfloat16),
-             bgwin.astype(jnp.bfloat16)], 1)
-        EyTab, ExTab = phases_lib.expansion_tables(PPU, 64, qp, win_size=W)
-        Ey = jnp.asarray(EyTab, jnp.bfloat16)[jy]
-        Ex = jnp.asarray(ExTab, jnp.bfloat16)[jx]
-        rows = jnp.einsum("nri,ncij->ncrj", Ey, win_c,
-                          preferred_element_type=jnp.bfloat16)
-        X = jnp.einsum("ncrj,nju->ncru", rows, Ex,
-                       preferred_element_type=jnp.bfloat16)
-        img = scene_kernel.scene_reference(
-            X, jy * qp + jx, theme, tb, SA["kinds"], SA["themes"],
-            groups, C.OBS)
+    img = scene_lib.render_scene(
+        gridp, SA["bgpad"], ty0, tx0, jy, jx,
+        level.bg_index.astype(jnp.int32), level.theme.astype(jnp.int32),
+        SA["bank"], SA["kinds"], SA["themes"], groups, PPU, qp, W)
     return jnp.clip(jnp.round(img), 0, 255).astype(jnp.uint8)
 
 
 def observe_batch(cfg: Config, states: State):
-    """Batched renderer: same scene as `observe` via the fused scene
-    kernel at obs resolution (quantized render camera), or shared
+    """Batched renderer: same scene as `observe` via the scene
+    compositor at obs resolution (quantized render camera), or shared
     batched matmuls + pixel-snapped stamps otherwise. Differences vs the
     per-env path are stamp pixel snapping (<=1 px), additive blending of
     overlapping stamps, and the <= 0.6 px camera quantization.

@@ -1,6 +1,6 @@
 """Coinrun: procedurally-generated platformer with pits, hazards and a coin.
 
-TPU-native re-implementation of `/root/reference/games/coinrun/`:
+JAX re-implementation of the reference's `games/coinrun/`:
   * level generation — difficulty-scaled platform sections with elevation
     deltas bounded by jump physics, pits filled with lava/saws/mobs, crate
     piles, coin goal, wall close-off (tilemap.cpp:97-292);
@@ -29,7 +29,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..core import spaces
 from ..physics.tiles import (
@@ -40,7 +40,7 @@ from ..physics.aabb import check_collision
 from ..render import atlas as atlas_lib
 from ..render import compositor as C
 from ..render import phases as phases_lib
-from ..render import scene_kernel
+from ..render import scene as scene_lib
 
 NAME = "coinrun"
 NUM_ACTIONS = 15
@@ -95,7 +95,7 @@ class Config:
     allow_crate: bool = True
     allow_dy: bool = True
     allow_mobs: bool = True
-    # Render-only: camera phase quantization for the fused scene kernel
+    # Render-only: camera phase quantization for the scene compositor
     # (render/phases.py); 0 = exact continuous camera (slow path).
     scene_phases: int = 4
 
@@ -659,7 +659,7 @@ HAZARD_CULL = 16  # joint saw+mob cull: the 13.3-unit visible window holds
 
 @functools.lru_cache(maxsize=None)
 def _stamp_banks():
-    """Pixel-snapped patch banks (compositor.stamps_from_pixel_bank)."""
+    """Pixel-snapped patch banks (compositor.composite_stamps)."""
     A = atlas_lib
     u = PPU  # 1 world unit in obs pixels (4.8)
     specs = [("saw", u, u), ("saw_move", u, u), ("coin", u, u)]
@@ -677,13 +677,15 @@ def _stamp_banks():
     return dict(moving=moving, agent=agent)
 
 
-def _cull(oh_none, cam_x, pos, alive, k):
-    """Top-k alive entities nearest the camera in x; returns a one-hot
-    selector [N, k, M] (matmul-based select — no vmapped gathers)."""
+def _cull(cam_x, pos, alive, var, k):
+    """The k alive entities nearest the camera in x: their (pos [N, k, 2],
+    alive [N, k], var [N, k]), selected by index so f32 positions pass
+    through exactly."""
     score = jnp.where(alive, -jnp.abs(pos[..., 0] - cam_x[:, None]), -1e30)
     _, ids = jax.lax.top_k(score, k)
-    M = pos.shape[1]
-    return (ids[..., None] == jnp.arange(M)).astype(jnp.bfloat16)
+    return (jnp.take_along_axis(pos, ids[..., None], axis=1),
+            jnp.take_along_axis(alive, ids, axis=1),
+            jnp.take_along_axis(var, ids, axis=1))
 
 
 def observe_batch(cfg: Config, states: State):
@@ -698,7 +700,7 @@ def observe_batch(cfg: Config, states: State):
 @functools.lru_cache(maxsize=None)
 def _scene_assets(qp):
     """Tile-entry phase bank + padded tile-resolution content textures
-    for the fused scene kernel (render/scene_kernel.py)."""
+    for the quantized-camera scene (render/scene.py)."""
     A = _assets()
     atlas_s = np.asarray(A["atlas_p"]).transpose(1, 0, 2, 3)  # [A, 4, S, S]
     idx = A["idx"]
@@ -725,19 +727,16 @@ def _scene_assets(qp):
     P = phases_lib.WIN
     bgpad = np.zeros((NUM_BGS, 3, 64 + 2 * P, 64 + 2 * P), np.uint8)
     bgpad[:, :, P:P + 64, P:P + 64] = bgs.transpose(1, 0, 2, 3)
-    EyTab, ExTab = phases_lib.expansion_tables(PPU, 64, qp, win_size=P)
-    TR, _, _ = phases_lib.phase_tables(PPU, 64, qp)
     return dict(bank=bank, kinds=tuple(kinds), themes=tuple(themes),
-                bgpad=bgpad, EyTab=EyTab, ExTab=ExTab,
-                TRtab=TR[:, None, :].astype(np.int32))
+                bgpad=bgpad)
 
 
 def _observe_scene(cfg: Config, states: State):
     """Quantized-camera scene path: the render camera snaps to 1/QP world
     units (<= PPU/(2*QP) = 0.6 obs px at QP=4 — render-only; physics is
-    untouched), collapsing tile/bg sampling into QP^2 shared phases so
-    the entire tile stack + background + stamps run in one Pallas kernel
-    pass over a VMEM phase bank (render/phases.py, scene_kernel.py)."""
+    untouched), collapsing tile/bg sampling into QP^2 shared phases:
+    the tile stack + background become per-pixel selects from a phase
+    bank, followed by the stamps (render/phases.py, render/scene.py)."""
     A = _assets()
     banks = _stamp_banks()
     qp = cfg.scene_phases
@@ -783,12 +782,8 @@ def _observe_scene(cfg: Config, states: State):
     all_pos = jnp.concatenate([level.saw_pos, states.mob_pos], axis=1)
     all_alive = jnp.concatenate([level.saw_alive, level.mob_alive], axis=1)
     all_var = jnp.concatenate([saw_var_full, mob_var_full], axis=1)
-    oh = _cull(None, cam_x, all_pos, all_alive, HAZARD_CULL)
-    hz_pos = jnp.einsum("nkm,nmc->nkc", oh, all_pos)
-    hz_alive = jnp.einsum(
-        "nkm,nm->nk", oh, all_alive.astype(jnp.bfloat16)) > 0.5
-    hz_var = jnp.round(jnp.einsum(
-        "nkm,nm->nk", oh, all_var.astype(jnp.bfloat16))).astype(jnp.int32)
+    hz_pos, hz_alive, hz_var = _cull(cam_x, all_pos, all_alive, all_var,
+                                     HAZARD_CULL)
 
     coin_var = jnp.full((N, 1), 2, jnp.int32)
     centers = jnp.concatenate([hz_pos, level.coin_pos[:, None, :]], axis=1)
@@ -814,38 +809,10 @@ def _observe_scene(cfg: Config, states: State):
         (C._premultiply_bank(banks["agent"]), avar,
          jnp.ones((N, 1), jnp.float32), ar0, ac0),
     ]
-    theme = level.theme.astype(jnp.int32)
-    bg_i = level.bg_index.astype(jnp.int32)
-    tb = jnp.asarray(SA["bank"])
-    if C._use_stamp_kernel():
-        # windows + expansion happen inside the kernel (the XLA-side
-        # vmapped dynamic_slice windows profiled 5.3 ms/step @4096)
-        img = scene_kernel.scene_tpu_raw(
-            gridp, ty0, tx0, jy, jx, bg_i, theme, SA["bgpad"],
-            SA["TRtab"], tb, SA["kinds"], SA["themes"],
-            groups, C.OBS, qp, W)
-    else:
-        # jnp mirror: slice windows, expand via the same 0/1 tables
-        gwin = jax.vmap(
-            lambda g, y, x: jax.lax.dynamic_slice(g, (y + W, x + W), (W, W))
-        )(gridp, ty0, tx0)
-        bgpad = jnp.asarray(SA["bgpad"])
-        bgwin = jax.vmap(
-            lambda b, y, x: jax.lax.dynamic_slice(
-                bgpad, (b, 0, y + W, x + W), (1, 3, W, W))[0]
-        )(bg_i, ty0, tx0)
-        win = jnp.concatenate(
-            [gwin[:, None].astype(jnp.bfloat16),
-             bgwin.astype(jnp.bfloat16)], 1)  # [N, 4, W, W]
-        Ey = jnp.asarray(SA["EyTab"], jnp.bfloat16)[jy]  # [N, 64, W]
-        Ex = jnp.asarray(SA["ExTab"], jnp.bfloat16)[jx]  # [N, W, 64]
-        rows = jnp.einsum("nri,ncij->ncrj", Ey, win,
-                          preferred_element_type=jnp.bfloat16)
-        X = jnp.einsum("ncrj,nju->ncru", rows, Ex,
-                       preferred_element_type=jnp.bfloat16)
-        p_joint = jy * qp + jx
-        img = scene_kernel.scene_reference(
-            X, p_joint, theme, tb, SA["kinds"], SA["themes"], groups, C.OBS)
+    img = scene_lib.render_scene(
+        gridp, SA["bgpad"], ty0, tx0, jy, jx,
+        level.bg_index.astype(jnp.int32), level.theme.astype(jnp.int32),
+        SA["bank"], SA["kinds"], SA["themes"], groups, PPU, qp, W)
     return jnp.clip(jnp.round(img), 0, 255).astype(jnp.uint8)
 
 
@@ -861,9 +828,6 @@ def _observe_exact(cfg: Config, states: State):
     wx_b = cam_x[:, None] + c[None, :] / PPU
     wy_b = cam_y[:, None] + c[None, :] / PPU
 
-    # (Sampling the bg as a single-channel packed-int field through the
-    # tile one-hots was benched and reverted: the f32 HIGHEST-precision
-    # dots it needs cost ~6 bf16 MXU passes — 168.8k -> 157.2k steps/s.)
     img = C.draw_background_batch(
         jnp.asarray(A["bgs_p"]), level.bg_index.astype(jnp.int32), wx_b, wy_b
     )
@@ -907,16 +871,11 @@ def _observe_exact(cfg: Config, states: State):
     inv = jnp.bfloat16(1 / 255.0)
 
     # Kind-at-a-time sampling, BOTH stages, fused with the blend: a
-    # monolithic [N, K, 4, OBS, OBS] einsum was the profile's top cost
-    # (7.4 ms/step incl. an extra layout copy, batch 4096), and a shared
-    # batched first stage [N, K, 4, OBS, S] forced a relayout copy of
-    # every per-kind slice before its second-stage dot (0.45 ms x 7
-    # kinds); producing each kind's rows immediately before its dot
-    # lets XLA assign agreeing layouts.
-    # (Producing rows in the first stage's natural "nrcw" order to kill
-    # the batch-minor relayout copies was tried on chip and measured
-    # WORSE overall — 168.6k -> 147.4k steps/s — XLA's layout choice for
-    # the "nrcw,nuw" second-stage dot costs more than the copies saved.)
+    # monolithic [N, K, 4, OBS, OBS] einsum materializes K frames, and a
+    # shared batched first stage [N, K, 4, OBS, S] can force a relayout
+    # copy of every per-kind slice before its second-stage dot;
+    # producing each kind's rows immediately before its dot lets XLA
+    # assign agreeing layouts.
     def blend_kind(img, mask, tex_k):
         if tex_k.ndim == 4:  # [N, 4, S, S] per-env themed texture
             rows_k = jnp.einsum("nrh,nchw->ncrw", ohv,
@@ -962,15 +921,11 @@ def _observe_exact(cfg: Config, states: State):
     all_alive = jnp.concatenate([level.saw_alive, level.mob_alive], axis=1)
     all_var = jnp.concatenate([saw_var_full, mob_var_full], axis=1)
 
-    oh = _cull(None, cam_x, all_pos, all_alive, HAZARD_CULL)
-    hz_pos = jnp.einsum("nkm,nmc->nkc", oh, all_pos)
-    hz_alive = jnp.einsum(
-        "nkm,nm->nk", oh, all_alive.astype(jnp.bfloat16)) > 0.5
-    hz_var = jnp.round(jnp.einsum(
-        "nkm,nm->nk", oh, all_var.astype(jnp.bfloat16))).astype(jnp.int32)
+    hz_pos, hz_alive, hz_var = _cull(cam_x, all_pos, all_alive, all_var,
+                                     HAZARD_CULL)
 
-    # slot order = painter order on the kernel path: hazards first,
-    # coin last (observe draws saws, mobs, then the coin)
+    # slot order follows observe's draw order: hazards first, coin last
+    # (observe draws saws, mobs, then the coin)
     coin_var = jnp.full((N, 1), 2, jnp.int32)
     centers = jnp.concatenate([hz_pos, level.coin_pos[:, None, :]], axis=1)
     vars_ = jnp.concatenate([hz_var, coin_var], axis=1)

@@ -1,6 +1,6 @@
 """Jumper: open-world cave platformer — double-jump bunny seeks a carrot.
 
-TPU-native re-implementation of `/root/reference/games/jumper/`:
+JAX re-implementation of the reference's `games/jumper/`:
   * level generation — no-dead-end maze upsampled x3 as a wall-probability
     prior (0.8 wall / 0.2 space), 2 cellular-automata passes, border
     walls, largest connected room, random goal cell + random ground agent
@@ -35,7 +35,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..core import spaces
 from ..gen.kruskal import kruskal_maze, open_dead_ends, masked_uniform_cell
@@ -45,7 +45,7 @@ from ..physics.aabb import check_collision
 from ..render import atlas as atlas_lib
 from ..render import compositor as C
 from ..render import phases as phases_lib
-from ..render import scene_kernel
+from ..render import scene as scene_lib
 
 NAME = "jumper"
 NUM_ACTIONS = 15
@@ -81,7 +81,7 @@ _LUT_WALL = np.array([NONE, FULL, FULL, NONE], np.int32)
 @dataclasses.dataclass(frozen=True)
 class Config:
     mode: str = "easy"  # tilemap.h default (easy world_dim 20)
-    # Render-only camera phase quantization for the fused scene kernel
+    # Render-only camera phase quantization for the scene compositor
     # (render/phases.py); 0 = exact continuous camera (slow path).
     scene_phases: int = 4
 
@@ -342,8 +342,8 @@ def _spike_hit(level, rx, ry):
     check_collision would evaluate per cell (the rect spans < 1 unit,
     so only the 3x3 window can overlap; testing every cell with the
     identical per-axis inequalities is exactly the reference's per-cell
-    loop). The previous traced-index 3x3 gather window cost 1.8 ms/step
-    at batch 4096 under vmap (36 batched scalar gathers per env step).
+    loop). It replaces a traced-index 3x3 gather window (36 batched
+    scalar gathers per env step under vmap).
     """
     D = level.spike_grid.shape[0]
     t = jnp.arange(D, dtype=jnp.float32)
@@ -602,7 +602,7 @@ NEEDLE_BINS = 64  # compass-needle rotation quantization (~2.8 deg)
 
 @functools.lru_cache(maxsize=None)
 def _stamp_banks():
-    """Pixel-snapped patch banks (compositor.stamps_from_pixel_bank)."""
+    """Pixel-snapped patch banks (compositor.composite_stamps)."""
     A = atlas_lib
     u = PPU  # 1 world unit in obs pixels (4.8 at zoom 0.3)
     # jump-dust circles at PART_BINS quantized shrink ratios
@@ -672,8 +672,8 @@ def _compass_overlay(obs: int):
 
 @functools.lru_cache(maxsize=None)
 def _scene_assets(qp, D):
-    """Tile-entry phase bank + padded content for the fused scene
-    kernel (render/scene_kernel.py; see coinrun._scene_assets)."""
+    """Tile-entry phase bank + padded content for the quantized-camera
+    scene (render/scene.py; see coinrun._scene_assets)."""
     A = _assets()
     atlas_s = np.asarray(A["atlas_p"]).transpose(1, 0, 2, 3)
     idx = A["idx"]
@@ -693,16 +693,15 @@ def _scene_assets(qp, D):
     bgpad = np.zeros((NUM_BGS, 3, GP, GP), np.uint8)
     n = min(64, GP - P)
     bgpad[:, :, P:P + n, P:P + n] = bgs.transpose(1, 0, 2, 3)[:, :, :n, :n]
-    TR, _, _ = phases_lib.phase_tables(PPU, 64, qp)
     return dict(bank=bank, kinds=tuple(kinds), themes=tuple(themes),
-                bgpad=bgpad, TRtab=TR[:, None, :].astype(np.int32))
+                bgpad=bgpad)
 
 
 def _observe_scene(cfg: Config, states: State):
     """Quantized-camera scene path (see coinrun._observe_scene): bg +
     themed walls + spikes + particle/carrot and bunny stamp groups run
-    in one Pallas pass; the compass overlay + rotated needle follow in
-    XLA/stamp-kernel space. One z deviation vs the exact path: spikes
+    in one scene pass; the compass overlay + rotated needle follow as
+    frame-space blends. One z deviation vs the exact path: spikes
     come from the tile layer, so dust particles draw OVER spike cells
     instead of under (visible only when dust drifts onto a spike)."""
     A = _assets()
@@ -769,36 +768,10 @@ def _observe_scene(cfg: Config, states: State):
         (C._premultiply_bank(banks["bunny"]), bvar,
          jnp.ones((N, 1), jnp.float32), br0, bc0),
     ]
-    theme = level.theme.astype(jnp.int32)
-    bg_i = level.bg_index.astype(jnp.int32)
-    tb = jnp.asarray(SA["bank"])
-    if C._use_stamp_kernel():
-        img = scene_kernel.scene_tpu_raw(
-            gridp, ty0, tx0, jy, jx, bg_i, theme, SA["bgpad"],
-            SA["TRtab"], tb, SA["kinds"], SA["themes"],
-            groups, C.OBS, qp, W)
-    else:
-        gwin = jax.vmap(
-            lambda g, y, x: jax.lax.dynamic_slice(g, (y + W, x + W), (W, W))
-        )(gridp, ty0, tx0)
-        bgpad = jnp.asarray(SA["bgpad"])
-        bgwin = jax.vmap(
-            lambda b, y, x: jax.lax.dynamic_slice(
-                bgpad, (b, 0, y + W, x + W), (1, 3, W, W))[0]
-        )(bg_i, ty0, tx0)
-        win = jnp.concatenate(
-            [gwin[:, None].astype(jnp.bfloat16),
-             bgwin.astype(jnp.bfloat16)], 1)
-        EyTab, ExTab = phases_lib.expansion_tables(PPU, 64, qp, win_size=W)
-        Ey = jnp.asarray(EyTab, jnp.bfloat16)[jy]
-        Ex = jnp.asarray(ExTab, jnp.bfloat16)[jx]
-        rows = jnp.einsum("nri,ncij->ncrj", Ey, win,
-                          preferred_element_type=jnp.bfloat16)
-        X = jnp.einsum("ncrj,nju->ncru", rows, Ex,
-                       preferred_element_type=jnp.bfloat16)
-        img = scene_kernel.scene_reference(
-            X, jy * qp + jx, theme, tb, SA["kinds"], SA["themes"],
-            groups, C.OBS)
+    img = scene_lib.render_scene(
+        gridp, SA["bgpad"], ty0, tx0, jy, jx,
+        level.bg_index.astype(jnp.int32), level.theme.astype(jnp.int32),
+        SA["bank"], SA["kinds"], SA["themes"], groups, PPU, qp, W)
 
     # ---- compass HUD (screen space, jumper.cpp:473-509) ----
     crgb_np, ca_np = _compass_overlay(C.OBS)
@@ -827,8 +800,8 @@ def _observe_scene(cfg: Config, states: State):
 
 
 def observe_batch(cfg: Config, states: State):
-    """Batched renderer: same scene as `observe` via the fused scene
-    kernel at obs resolution (quantized render camera), or shared
+    """Batched renderer: same scene as `observe` via the scene
+    compositor at obs resolution (quantized render camera), or shared
     batched matmuls + pixel-snapped stamps otherwise. Approximations vs
     the per-env path: stamp pixel snapping (<=1 px), particle size /
     needle angle quantization (PART_BINS / NEEDLE_BINS), additive

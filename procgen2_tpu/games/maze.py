@@ -1,7 +1,7 @@
 """Maze: Kruskal-carved grid world, discrete cell-snapped movement.
 
-TPU-native re-implementation of the reference maze engine
-(`/root/reference/games/maze/`): level generation (tilemap.cpp:31-109),
+JAX re-implementation of the reference maze engine
+(the reference's `games/maze/`): level generation (tilemap.cpp:31-109),
 movement + goal check (common_systems.cpp:69-136), timeout termination
 (maze.cpp:45-50,295-310) and rendering order (maze.cpp:386-414). Behavior
 parity notes are cited inline.
@@ -17,7 +17,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..core import spaces
 from ..gen.kruskal import kruskal_maze, masked_uniform_cell
@@ -84,7 +84,7 @@ def _assets():
     atlas, idx = atlas_lib.build_atlas(("maze_wall", "cheese", "mouse"))
     bgs = atlas_lib.build_backgrounds("topdown", 9)  # maze.cpp:62-72
     lut = [-1, idx["maze_wall"]]  # empty -> transparent, wall -> sand tile
-    # Planar (channel-leading) layouts for TPU-friendly gathers.
+    # Planar (channel-leading) layouts for the compositor.
     return atlas.transpose(3, 0, 1, 2), idx, bgs.transpose(3, 0, 1, 2), lut
 
 

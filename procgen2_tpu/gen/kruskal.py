@@ -1,6 +1,6 @@
 """Randomized-Kruskal maze carving as a jit-compiled, PRNG-keyed function.
 
-TPU-first re-design of the reference's Maze_Generator
+Array re-design of the reference's Maze_Generator
 (`games/maze/maze_generator.cpp:55-139`): the C++ picks a uniformly random
 remaining wall each iteration and erases it from a vector — equivalent to
 visiting the wall list in a uniformly random permutation — and merges room
@@ -59,8 +59,7 @@ FIND_DEPTH = 12  # union-by-rank bounds tree height by the rank, and the
 #                  always reaches the root and compiles far better than
 #                  a data-dependent while_loop; the two chases dominate
 #                  the loop's batched-gather work, so depth is kept
-#                  tight (16 -> 12 measured +14% maze bank generation
-#                  on v5e: 5.1k -> 5.8k levels/s).
+#                  tight.
 
 
 def _find(parent, c):
@@ -108,16 +107,11 @@ def kruskal_maze(key, dim, max_dim: int):
     # (maze_generator.cpp:110-118), but each wall's CENTER cell is
     # unique to that wall and centers are never cell 0, so the check is
     # always true at the wall's own turn — dropping the wall-grid carry
-    # removes three [D*D] scatters and a gather per iteration (measured
-    # 5.69k -> 6.02k levels/s for the hard-maze bank on v5e).
+    # removes three [D*D] scatters and a gather per iteration.
     #
-    # Parallel reformulations were tried and measured SLOWER (see
-    # PERF.md round 5): Boruvka rounds with scatter segment_min 2.66k,
-    # with dense broadcast-min 3.00k (the label/pointer-jump gathers
-    # dominate), and chunked snapshot-finds with exact staleness chases
-    # 5.40k/5.58k at chunk 8/4 — the sequential fori_loop's per-wall
-    # latency is already close to the batched-gather floor at these
-    # maze sizes.
+    # Parallel reformulations (Boruvka rounds with scatter or dense
+    # segment-min, chunked snapshot-finds) have been tried; none has been
+    # timed on the GPU yet (ROADMAP Speed #4).
     def body(k, carry):
         parent, rank, carved = carry
         w = order[k]
@@ -160,13 +154,12 @@ def boruvka_maze(key, dim, max_dim: int):
     permutation (acceptance depends only on connectivity, and the MST is
     unique for distinct weights) — so Boruvka's algorithm on those same
     weights carves the IDENTICAL wall set, key for key. The sequential
-    ~n_walls fori_loop (two rank-bounded finds per iteration; the
-    measured bank-generation bottleneck, PERF.md) becomes ~10 rounds of
-    array-parallel work: per round every component picks its minimum
-    crossing wall (segment_min over both endpoint labels), carved walls
-    are recovered by VALUE comparison against the per-component minima
-    (no scatter in the round body), and labels contract by pointer
-    jumping.
+    ~n_walls fori_loop (two rank-bounded finds per iteration) becomes
+    ~10 rounds of array-parallel work: per round every component picks
+    its minimum crossing wall (segment_min over both endpoint labels),
+    carved walls are recovered by VALUE comparison against the
+    per-component minima (no scatter in the round body), and labels
+    contract by pointer jumping.
 
     Verified bit-identical to kruskal_maze across keys/dims
     (tests/test_kruskal.py)."""
@@ -205,9 +198,8 @@ def boruvka_maze(key, dim, max_dim: int):
         active = valid & (lu != lv)
         keyw = jnp.where(active, weight, BIG)
         # per-component min via a dense broadcast-reduce: segment_min
-        # lowers to scatter-min, which under vmap is the slow batched-
-        # scatter path (measured 2x SLOWER than the sequential Kruskal
-        # loop); a [E, R] masked min is pure fused VPU reduce work
+        # lowers to a batched scatter-min under vmap; a [E, R] masked
+        # min is fused elementwise + reduce work
         comp = jnp.arange(R, dtype=jnp.int32)
         m_u = jnp.min(
             jnp.where(lu[:, None] == comp[None, :], keyw[:, None], BIG),

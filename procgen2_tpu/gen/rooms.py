@@ -1,6 +1,6 @@
 """Cellular-automata caves, connected rooms, BFS paths — array-parallel.
 
-TPU-first re-design of the reference's Room_Generator
+Array re-design of the reference's Room_Generator
 (`games/jumper/room_generator.{h,cpp}`, vendored identically in caveflyer):
 
 * `ca_smooth` — the Moore-9 >= 5 -> wall smoothing pass

@@ -9,7 +9,7 @@ LUT over tile ids instead of a std::function. Coinrun's one-way-platform
 (`down_only`) logic with `fallthrough` + `step_y` (tilemap.cpp:352-360) is
 included.
 
-TPU re-design: the reference loops over the floor/ceil tile window of the
+Array re-design: the reference loops over the floor/ceil tile window of the
 AABB sequentially, *mutating the rectangle as it scans* (later tiles see the
 already-resolved position) — so the loop is unrolled here over a static 3x3
 tile window (sufficient for the <= 1x1 rects every game uses) carrying the
@@ -49,9 +49,8 @@ def _window_types(grid, coll_lut, lx, ly, oob_id):
     with one pair of one-hot contractions instead of 9 scalar gathers.
 
     The grid never changes during a resolve (only the rect moves), so the
-    window values are loop constants; fetching them as matmuls keeps the
-    resolver off the scalar-gather path (vmapped gathers are the slow TPU
-    path). The LUT is applied arithmetically (tile-id equality masks) —
+    window values are loop constants, fetched once with one-hot masks
+    instead of per-probe gathers. The LUT is applied arithmetically (tile-id equality masks) —
     no gathers at all. `lx`/`ly` may carry leading batch dims (e.g. [K]
     probes resolved together — coinrun's 40 mob sensors become one
     matmul pair instead of 40 resolver calls). Returns a python list
@@ -61,10 +60,9 @@ def _window_types(grid, coll_lut, lx, ly, oob_id):
     d3 = jnp.arange(_WINDOW)
     ys = ly[..., None] + d3  # [..., 3]
     xs = lx[..., None] + d3
-    # Row select + column select as broadcast multiply-reduces on the
-    # VPU. A dot here would become one tiny fill-bound MXU matmul per
-    # env (batched [3,H]@[H,W] — ~500 cycles of pipeline fill for ~60
-    # cycles of work); the elementwise form streams instead.
+    # Row select + column select as broadcast multiply-reduces: a dot
+    # here would be one tiny batched [3,H]@[H,W] matmul per env; the
+    # elementwise form fuses instead.
     ohy = (jnp.arange(H) == ys[..., None])  # [..., 3, H] bool
     rows = jnp.sum(
         jnp.where(ohy[..., None], grid[..., None, :, :].astype(jnp.int32), 0),
@@ -170,10 +168,9 @@ def fetch_window_patch(grid, lx0, ly, oob_id, width=5):
     For entities whose per-step movement is bounded by one tile
     (coinrun/climber patrol mobs move <= 0.15 units/step), the whole
     step's sub-step resolves read from this one small patch instead of
-    full-width rows — the [N, K, 3, W] rows tensor and its per-sub-step
-    column reductions were ~3 ms/step of coinrun's profile at batch
-    4096; the patch is W/width of the traffic and the sub-step select
-    shrinks from a 64-wide reduction to a `width`-wide one.
+    full-width rows: the patch is W/width of the traffic of the
+    [N, K, 3, W] rows tensor, and the per-sub-step select shrinks from a
+    64-wide reduction to a `width`-wide one.
     """
     rows = fetch_window_rows(grid, ly, oob_id)  # [K, 3, W] int8
     W = grid.shape[1]
@@ -285,8 +282,8 @@ def probe_any_solid(solid, x, y, w, h, oob_solid=True):
     H, W = solid.shape
     # Overlap-interval masks per axis (strict overlap, ow/oh > 0 — the
     # resolver's hit test): ovx[k, tx] / ovy[k, ty]. The solid-overlap
-    # count is then (ovy @ solid) . ovx — two MXU contractions for all K
-    # probes with zero gathers (vmapped gathers are the slow TPU path).
+    # count is then (ovy @ solid) . ovx — two contractions for all K
+    # probes with zero gathers.
     tiles_x = jnp.arange(W, dtype=jnp.float32)
     tiles_y = jnp.arange(H, dtype=jnp.float32)
     ovx = ((x[:, None] < tiles_x + 1.0)

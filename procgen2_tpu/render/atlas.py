@@ -870,7 +870,7 @@ def rasterize_patch(name: str, w_px: float, h_px: float, rot: float = 0.0,
     (screen-clockwise, matching SDL_RenderTextureRotated's positive
     angles — games/caveflyer/renderer.cpp:84-101). The sprite quad is
     centered in the patch so a rotated quad's overhang stays inside.
-    Used by compositor.stamps_from_pixel_bank: rotation becomes a
+    Used by compositor.composite_stamps: rotation becomes a
     variant index instead of a per-pixel gather.
     """
     src = _to_u8(_REGISTRY[name]()).astype(np.float32)
@@ -896,7 +896,7 @@ def rasterize_patch(name: str, w_px: float, h_px: float, rot: float = 0.0,
 def build_pixel_bank(specs: Tuple[tuple, ...], patch: int = 8) -> np.ndarray:
     """Stack rasterize_patch results: specs of (name, w_px, h_px[, rot
     [, flip_x]]) -> uint8 [V, 4, P, P] (planar, ready for
-    stamps_from_pixel_bank)."""
+    compositor.composite_stamps)."""
     imgs = []
     for spec in specs:
         name, w_px, h_px = spec[0], spec[1], spec[2]

@@ -4,13 +4,10 @@ into a small set of shared patterns.
 The reference renders a continuously-scrolling camera by resampling every
 tile texture per frame (render_game camera transform,
 games/coinrun/coinrun.cpp:443-470 with renderer.cpp:5-82 nearest
-sampling). On TPU, per-env resampling is the profile's top cost: each
-tile kind needs a per-env pair of one-hot sampling matmuls whose
-[4*OBS, S] @ [S, OBS] shapes are MXU-fill-bound (PERF.md round-4
-breakdown: 5.1 ms tile second stages + 2.7 ms relayout copies + 4.7 ms
-background dots for coinrun at batch 4096).
+sampling). Per-env resampling costs each tile kind a per-env pair of
+small one-hot sampling matmuls ([4*OBS, S] @ [S, OBS]).
 
-The structural fix (PERF.md roadmap #1): quantize the *render* camera to
+The structural alternative: quantize the *render* camera to
 1/QP world units. Physics and rewards never see the quantized value —
 the shift is render-only and bounded by 1/(2*QP) units (= PPU/(2*QP)
 obs pixels; 0.6 px for coinrun's 4.8 ppu at QP=4, well under the one
@@ -28,8 +25,8 @@ the renderer needs becomes a table lookup:
   * VV/UU[j][pix]  texel row/col inside the tile,
   * a pre-pixelized [QP*QP, kinds, 4, OBS, OBS] premultiplied tile
     bank (one entry per joint phase: the exact nearest-sampled image
-    of an infinite plane of that kind) that lives in VMEM and turns
-    per-env resampling into per-pixel selects (render/scene_kernel.py),
+    of an infinite plane of that kind) that turns per-env resampling
+    into per-pixel selects (render/scene.py),
   * per-phase 0/1 expansion matrices Ey [OBS, WIN] / Ex [WIN, OBS]
     that lift any WIN x WIN tile-resolution window (tile kinds, the
     64-tile-spanning backgrounds of atlas.BG_SIZE) to pixel resolution.
@@ -88,7 +85,7 @@ def phase_tables(ppu: float, obs: int = 64, qp: int = 4):
 @functools.lru_cache(maxsize=None)
 def win(ppu: float, obs: int = 64, qp: int = 4) -> int:
     """Tile-window span for this camera: the number of tile rows any
-    phase can touch (= grid pad width for the scene kernel)."""
+    phase can touch (= grid pad width for the scene compositor)."""
     TR, _, _ = phase_tables(ppu, obs, qp)
     return int(TR.max()) + 1
 
@@ -136,7 +133,7 @@ def tile_phase_bank(textures: np.ndarray, ppu: float, obs: int = 64,
     [qp*qp, K, 4, obs, obs] (rgb * a, a in [0, 1]).
 
     textures: uint8 [K, 4, S, S] tile RGBA textures (kind order = the
-    scene kernel's entry order).
+    scene's entry order).
     """
     t = np.ascontiguousarray(np.asarray(textures, np.uint8))
     return _tile_phase_bank_cached(t.tobytes(), t.shape, ppu, obs, qp)

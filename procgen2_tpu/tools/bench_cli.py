@@ -2,8 +2,10 @@
 
 The reference measures a single env's per-step FPS across the ctypes FFI
 (game_test.py:17-30). Here the unit of work is a jit `lax.scan` rollout
-of a sharded batch with on-device random actions and observations
-materialized to HBM; reported as env-steps/s.
+of a batch with on-device random actions and observations materialized
+to device memory; reported as env-steps/s. `main` runs only on a GPU
+and names the device in every record; `bench_game` itself runs on any
+backend (the CPU tests call it).
 
 Run:  python -m procgen2_tpu.tools.bench_cli            # all games
       python -m procgen2_tpu.tools.bench_cli chaser --num-envs 8192
@@ -39,9 +41,8 @@ def bench_game(game: str, num_envs: int = 4096, num_levels: int = 1024,
             state, ts = env._step(bank, state, actions)
             # Barrier: keep the u8 obs conversion OUT of the scan
             # buffer's dynamic-update-slice fusion — fused, the DUS
-            # loses its in-place update and rewrites the whole
-            # [T, N, 64, 64, 3] buffer every step (profiled 3-4 ms/step
-            # at batch 4096).
+            # can lose its in-place update and rewrite the whole
+            # [T, N, 64, 64, 3] buffer every step.
             obs = jax.lax.optimization_barrier(ts.obs)
             return (state, k), (obs, ts.reward)
 
@@ -83,6 +84,8 @@ def bench_game(game: str, num_envs: int = 4096, num_levels: int = 1024,
 
 def main(argv=None):
     from .. import GAMES
+    from ..utils import device
+    from ..utils.cache import enable_compilation_cache
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("game", nargs="?", default=None)
@@ -100,6 +103,10 @@ def main(argv=None):
              "readable per-game record: steps/s, batch, date, commit)",
     )
     args = parser.parse_args(argv)
+    dev = device.require_gpu()
+    card = device.card_name_and_power_limit()
+    print(json.dumps(dict(device=dev, card=card)))
+    enable_compilation_cache()
 
     games = [args.game] if args.game else list(GAMES)
     results = []
@@ -110,20 +117,24 @@ def main(argv=None):
         results.append(r)
     if args.out:
         import datetime
+        import os
         import subprocess
 
+        # the checkout may not be a git repository (commit then "unknown")
         try:
             commit = subprocess.run(
                 ["git", "rev-parse", "--short", "HEAD"],
-                capture_output=True, text=True, cwd="/root/repo",
-            ).stdout.strip()
+                capture_output=True, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+            ).stdout.strip() or "unknown"
         except OSError:
             commit = "unknown"
         doc = dict(
             date=datetime.date.today().isoformat(),
             commit=commit,
-            hardware="TPU v5e (1 chip)",
-            obs="rendered 64x64 uint8 HWC, materialized to HBM",
+            device=dev,
+            card=card,
+            obs="rendered 64x64 uint8 HWC, materialized to device memory",
             games=results,
         )
         with open(args.out, "w") as f:

@@ -6,7 +6,7 @@ data globals + 6 exported functions with tagged-union payloads) and
 drives it step by step. Written fresh against the ABI contract; only the
 struct layouts are (necessarily) dictated by the header.
 
-Not part of the TPU execution path — this exists so tests can compare
+Not part of the JAX execution path — this exists so tests can compare
 the JAX engines against the original C++ engines when a compiled
 reference .so is available (the difference_viewer pattern, SURVEY.md §4).
 """

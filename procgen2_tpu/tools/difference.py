@@ -24,8 +24,8 @@ bound the pixel stats below and are NOT parity bugs):
   whose overlaps add premultiplied contributions instead of painter's
   alpha order: identical except where two translucent sprites overlap
   (measured frac(|d|>8) < 1% in the per-game fast-path suites).
-- Blending accumulates in bf16 (+-1 of 255 per blend) and the stamp
-  kernel scales patches in bf16 (+-1 ulp at the 255 scale).
+- Blending accumulates in bf16 (+-1 of 255 per blend) and stamp
+  patches are scaled in bf16 (+-1 ulp at the 255 scale).
 - Default art is procedural; install render/png_assets for the
   reference's PNG look (tests/golden locks those frames bit-exactly).
 

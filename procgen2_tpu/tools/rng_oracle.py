@@ -22,13 +22,16 @@ tilemap.cpp:195-213; jumper/caveflyer's best-room free-cell order),
 the replay drives a *real* libstdc++ unordered_set through the same
 C ABI (see USet below).
 
-Build the library first:  make -C native
+The library is built from native/rng_oracle.cpp at first use (or by
+hand: make -C native); it is not tracked by git.
 """
 from __future__ import annotations
 
 import ctypes as ct
 import os
 import subprocess
+import tempfile
+import threading
 from typing import Optional
 
 import numpy as np
@@ -38,16 +41,37 @@ _LIB_PATH = os.path.join(
     "native", "librng_oracle.so",
 )
 _lib = None
+# Held while loading the library and while taking or freeing a handle:
+# the C side picks free slots of a fixed table without synchronisation,
+# and ctypes calls run without the interpreter lock.
+_HANDLES = threading.Lock()
+
+
+def _build():
+    """Compile rng_oracle.cpp to a temporary file and rename it into
+    place: the rename is atomic, so a concurrent process (a parallel
+    test worker) loads either no library or a whole one."""
+    native = os.path.dirname(_LIB_PATH)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=native)
+    os.close(fd)
+    try:
+        subprocess.run(
+            [os.environ.get("CXX", "g++"), "-O2", "-std=c++17", "-fPIC",
+             "-Wall", "-shared", "-o", tmp,
+             os.path.join(native, "rng_oracle.cpp")],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():
     global _lib
     if _lib is None:
         if not os.path.exists(_LIB_PATH):
-            subprocess.run(
-                ["make", "-C", os.path.dirname(_LIB_PATH)], check=True,
-                capture_output=True,
-            )
+            _build()
         _lib = ct.CDLL(_LIB_PATH)
         _lib.rng_create.restype = ct.c_int32
         _lib.rng_create.argtypes = [ct.c_uint32]
@@ -65,8 +89,9 @@ class Mt19937:
     """A seeded std::mt19937 with libstdc++ distribution draws."""
 
     def __init__(self, seed: int):
-        self._lib = _load()
-        self._h = self._lib.rng_create(ct.c_uint32(seed & 0xFFFFFFFF))
+        with _HANDLES:
+            self._lib = _load()
+            self._h = self._lib.rng_create(ct.c_uint32(seed & 0xFFFFFFFF))
         if self._h < 0:
             raise RuntimeError("rng_oracle handle pool exhausted")
 
@@ -81,7 +106,8 @@ class Mt19937:
         return float(self._lib.rng_uniform_float(self._h, lo, hi))
 
     def close(self):
-        self._lib.rng_destroy(self._h)
+        with _HANDLES:
+            self._lib.rng_destroy(self._h)
 
 
 WALL_CELL, EMPTY_CELL, GOAL = 1, 0, 2
@@ -271,8 +297,9 @@ class USet:
     """
 
     def __init__(self):
-        self._lib = _load()
-        self._h = self._lib.uset_create()
+        with _HANDLES:
+            self._lib = _load()
+            self._h = self._lib.uset_create()
         if self._h < 0:
             raise RuntimeError("uset handle pool exhausted")
 
@@ -298,7 +325,8 @@ class USet:
         self._lib.uset_assign(self._h, other._h)
 
     def close(self):
-        self._lib.uset_destroy(self._h)
+        with _HANDLES:
+            self._lib.uset_destroy(self._h)
 
     def __enter__(self):
         return self

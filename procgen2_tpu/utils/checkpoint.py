@@ -10,7 +10,8 @@ serialize the leaves, restore them, and the continued trajectory is
 bit-identical (tests/test_checkpoint.py proves it).
 
 Format: a single compressed ``.npz`` holding every leaf under its
-flattened state-dict path. JAX typed PRNG keys (``jax.random.key``) are
+pytree path (``state/game/level/grid``: dataclass fields, dict keys and
+list indices joined by ``/``). JAX typed PRNG keys (``jax.random.key``) are
 stored as their raw key data plus the impl name and re-wrapped on
 restore. Restoring requires a *target* pytree of the same structure
 (e.g. the live state, or one freshly built the same way) — the usual
@@ -32,7 +33,6 @@ from typing import Any, Dict
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import serialization
 
 _KEY_PREFIX = "__prngkey__"
 
@@ -43,33 +43,20 @@ def _is_typed_key(x) -> bool:
     )
 
 
-def _flatten(nested: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
-    if isinstance(nested, dict):
-        for k, v in nested.items():
-            _flatten(v, f"{prefix}/{k}" if prefix else str(k), out)
-    else:
-        if _is_typed_key(nested):
-            impl = str(jax.random.key_impl(nested))
-            out[f"{_KEY_PREFIX}:{impl}:{prefix}"] = np.asarray(
-                jax.random.key_data(nested)
-            )
-        else:
-            out[prefix] = np.asarray(nested)
+def _key_name(k) -> str:
+    """One path component: a dataclass field, dict key or list index."""
+    for attr in ("name", "key", "idx"):
+        if hasattr(k, attr):
+            return str(getattr(k, attr))
+    raise TypeError(f"unsupported pytree path entry {k!r}")
 
 
-def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
-    nested: Dict[str, Any] = {}
-    for path, arr in flat.items():
-        value: Any = arr
-        if path.startswith(_KEY_PREFIX + ":"):
-            _, impl, path = path.split(":", 2)
-            value = jax.random.wrap_key_data(jnp.asarray(arr), impl=impl)
-        node = nested
-        parts = path.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = value
-    return nested
+def _leaves_by_path(tree: Any, prefix: str):
+    """[(path, leaf)] with paths `prefix/field/.../leaf` (the archive's
+    key for that leaf)."""
+    leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return [("/".join([prefix] + [_key_name(k) for k in path]), leaf)
+            for path, leaf in leaves]
 
 
 def save(path: str, **trees: Any) -> None:
@@ -81,7 +68,13 @@ def save(path: str, **trees: Any) -> None:
     """
     flat: Dict[str, np.ndarray] = {}
     for name, tree in trees.items():
-        _flatten(serialization.to_state_dict(tree), name, flat)
+        for p, leaf in _leaves_by_path(tree, name):
+            if _is_typed_key(leaf):
+                impl = str(jax.random.key_impl(leaf))
+                flat[f"{_KEY_PREFIX}:{impl}:{p}"] = np.asarray(
+                    jax.random.key_data(leaf))
+            else:
+                flat[p] = np.asarray(leaf)
     np.savez_compressed(path, **flat)
 
 
@@ -91,28 +84,37 @@ def restore(path: str, **targets: Any) -> Dict[str, Any]:
     ``targets`` supplies one example pytree per saved namespace (the
     live object, or a freshly constructed one of identical structure);
     returns a dict mapping each requested name to the restored pytree.
-    Leaf dtype/shape mismatches raise (flax.serialization validates the
-    state dict against the target).
+    A leaf missing from the archive, or one whose shape differs from
+    the target's, raises ValueError.
     """
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
-    nested = _unflatten(flat)
+    keys = {}  # leaf path -> (impl, raw key data) for typed PRNG keys
+    for k in [k for k in flat if k.startswith(_KEY_PREFIX + ":")]:
+        _, impl, p = k.split(":", 2)
+        keys[p] = (impl, flat.pop(k))
+    namespaces = {p.split("/", 1)[0] for p in list(flat) + list(keys)}
     out: Dict[str, Any] = {}
     for name, target in targets.items():
-        if name not in nested:
+        if name not in namespaces:
             raise KeyError(
                 f"checkpoint {path!r} has no namespace {name!r}; "
-                f"available: {sorted(nested)}"
+                f"available: {sorted(namespaces)}"
             )
-        restored = serialization.from_state_dict(target, nested[name])
-        # from_state_dict keeps the target's leaf where the state dict
-        # holds one (e.g. typed keys restored above); push everything
-        # back to device arrays with the target's dtypes.
-        out[name] = jax.tree.map(
-            lambda t, r: r if _is_typed_key(r) else jnp.asarray(
-                r, getattr(t, "dtype", None)
-            ),
-            target,
-            restored,
-        )
+        values = []
+        for p, leaf in _leaves_by_path(target, name):
+            if p in keys:
+                impl, raw = keys[p]
+                values.append(jax.random.wrap_key_data(
+                    jnp.asarray(raw), impl=impl))
+                continue
+            if p not in flat:
+                raise ValueError(f"checkpoint {path!r} has no leaf {p!r}")
+            arr = flat[p]
+            if arr.shape != np.shape(leaf):
+                raise ValueError(
+                    f"leaf {p!r}: checkpoint shape {arr.shape} != "
+                    f"target shape {np.shape(leaf)}")
+            values.append(jnp.asarray(arr, getattr(leaf, "dtype", None)))
+        out[name] = jax.tree.unflatten(jax.tree.structure(target), values)
     return out

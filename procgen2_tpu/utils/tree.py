@@ -27,13 +27,12 @@ def tree_select(pred, on_true, on_false):
 def bank_gather(bank, idx):
     """Select one level (row `idx`) from a stacked level-bank pytree.
 
-    A per-leaf `x[idx]` under vmap lowers to batched row gathers — the
-    slow TPU path (measured: ~40 ms/step of the coinrun auto-reset at
-    batch 4096). Instead the selection runs as ONE one-hot bf16 matmul
-    per leaf over a uint8 *byte view* of the data: a one-hot contraction
-    copies exact byte values (<=255, exact in bf16), so the result is
-    bit-exact for every dtype after bitcasting back — while the MXU does
-    the work.
+    A per-leaf `x[idx]` under vmap lowers to batched row gathers; here
+    the selection runs as ONE one-hot bf16 matmul per leaf over a uint8
+    *byte view* of the data: a one-hot contraction copies exact byte
+    values (<=255, exact in bf16), so the result is bit-exact for every
+    dtype after bitcasting back. (Whether a plain row gather is faster
+    on the GPU is ROADMAP Speed #3.)
     """
     import jax
     import jax.numpy as jnp

@@ -1,9 +1,10 @@
 import os, sys, time
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 import jax
 jax.config.update("jax_platforms", "cpu")
+from procgen2_tpu.utils.cache import enable_compilation_cache
+enable_compilation_cache()
 import jax.numpy as jnp, numpy as np
 import procgen2_tpu as pg
 from procgen2_tpu.tools import bots

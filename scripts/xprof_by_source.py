@@ -1,48 +1,107 @@
 #!/usr/bin/env python
-"""Sum TPU op self-times by Python source attribution from a
-jax.profiler trace (complements xprof_top.py's per-HLO-op view)."""
+"""Sum device kernel time by Python source line (complements
+xprof_top.py's per-kernel view).
+
+Usage: python scripts/xprof_by_source.py TRACE_DIR [N]
+TRACE_DIR holds a jax.profiler trace and the optimized HLO of the traced
+program as `*.hlo.txt.gz` (`chip_smoke.py --trace DIR` writes both). A
+fusion kernel is named after its HLO instruction; the instruction's
+`stack_frame_id` indexes the module's StackFrames / FileLocations /
+FileNames / FunctionNames tables. Each kernel is attributed to its
+innermost frame (`file:line function`), followed by the nearest frame
+in a game module (`< bossfight.py:907 observe_batch`) when that is
+another file. Kernels with no instruction of their name (library calls
+such as cuBLAS `nvjet_*`) are listed under their own name.
+"""
 import collections
 import glob
 import gzip
-import json
+import os
+import re
 import sys
+
+from xprof_top import device_events
+
+_INSTR = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=.*\bstack_frame_id=(\d+)")
+_TABLES = ("FileNames", "FunctionNames", "FileLocations", "StackFrames")
+_ENTRY = re.compile(r'^(\d+) (?:"(.*)"|\{(.*)\})$')
+
+
+def _frames(lines):
+    """{frame id: [(file, line, function), ... outwards to the root]}."""
+    tables, current = {t: {} for t in _TABLES}, None
+    for line in lines:
+        line = line.rstrip("\n")
+        if line in _TABLES:
+            current = tables[line]
+            continue
+        m = _ENTRY.match(line) if current is not None else None
+        if not m:
+            current = None
+            continue
+        current[int(m.group(1))] = m.group(2) if m.group(2) is not None \
+            else dict(kv.split("=") for kv in m.group(3).split())
+    names, funcs, locs, frames = (tables[t] for t in _TABLES)
+
+    def chain(fid):
+        out, seen = [], set()
+        while fid in frames and fid not in seen:
+            seen.add(fid)
+            loc = locs[int(frames[fid]["file_location_id"])]
+            out.append((names[int(loc["file_name_id"])], loc["line"],
+                        funcs[int(loc["function_name_id"])]))
+            # parent ids are printed one above the parent's own id
+            # (0 = the outermost frame has none)
+            fid = int(frames[fid]["parent_frame_id"]) - 1
+        return out
+
+    return chain
+
+
+def _label(chain):
+    """'file:line function' of the innermost frame, plus the nearest
+    frame in a game module when it is in another file."""
+    def fmt(f):
+        return f"{os.path.basename(f[0])}:{f[1]} {f[2]}"
+
+    if not chain:
+        return "?"
+    game = next((f for f in chain if f"{os.sep}games{os.sep}" in f[0]), None)
+    if game is None or game[0] == chain[0][0]:
+        return fmt(chain[0])
+    return f"{fmt(chain[0])} < {fmt(game)}"
+
+
+def kernel_sources(logdir):
+    """{kernel name: source label} from every *.hlo.txt.gz under
+    `logdir`; HLO names map to kernel names with `.`/`-` as `_`."""
+    out = {}
+    for path in glob.glob(f"{logdir}/**/*.hlo.txt.gz", recursive=True):
+        with gzip.open(path, "rt") as f:
+            lines = f.readlines()
+        chain = _frames(lines)
+        for line in lines:
+            m = _INSTR.match(line)
+            if m:
+                out[re.sub(r"[.\-]", "_", m.group(1))] = _label(
+                    chain(int(m.group(2))))
+    return out
 
 
 def main():
     logdir = sys.argv[1]
     topn = int(sys.argv[2]) if len(sys.argv) > 2 else 30
-    paths = sorted(glob.glob(f"{logdir}/**/*.trace.json.gz", recursive=True))
-    if not paths:
-        sys.exit(f"no trace.json.gz under {logdir}")
-    with gzip.open(paths[-1], "rt") as f:
-        trace = json.load(f)
-    events = trace["traceEvents"]
-    pid_names = {}
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            pid_names[e["pid"]] = e["args"].get("name", "")
-    dev_pids = {p for p, n in pid_names.items()
-                if "TPU" in n or "Device" in n}
+    path, events = device_events(logdir)
+    sources = kernel_sources(logdir)
     by_src = collections.Counter()
-    cat_by_src = {}
-    total = 0.0
-    for e in events:
-        if e.get("ph") != "X" or e.get("pid") not in dev_pids:
-            continue
-        args = e.get("args") or {}
-        src = args.get("source")
-        if src is None:
-            continue  # skip the enclosing while/jit envelopes
-        dur = e.get("dur", 0) / 1e3
-        by_src[src] += dur
-        cat_by_src.setdefault(src, collections.Counter())[
-            args.get("hlo_category", "?")] += dur
-        total += dur
-    print(f"total attributed device time: {total:.1f} ms")
+    for name, ms, _ in events:
+        by_src[sources.get(name, f"[{name[:60]}]")] += ms
+    total = sum(by_src.values())
+    print(f"trace: {path}")
+    print(f"total device op time: {total:.3f} ms; "
+          f"{len(sources)} HLO instructions with a source frame\n")
     for src, ms in by_src.most_common(topn):
-        cats = ", ".join(f"{c}:{v:.0f}" for c, v in
-                         cat_by_src[src].most_common(3))
-        print(f"{ms:9.1f} ms  {src}  [{cats}]")
+        print(f"{ms:9.3f} ms  {100 * ms / total:5.1f}%  {src}")
 
 
 if __name__ == "__main__":

@@ -39,7 +39,7 @@ def test_bank_and_trajectory_deterministic(game):
 def test_level_set_semantics():
     """procgen-style num_levels/start_level: level i == fold_in(key,
     start_level+i), so shifted ranges share identical levels and the
-    same range is portable across bank sizes (VERDICT.md next #8)."""
+    same range is portable across bank sizes."""
     env = pg.make("maze")
     key = jax.random.key(42)
     full = env.generate_bank(key, num_levels=6, start_level=0)

@@ -73,8 +73,7 @@ def test_rollout_rewards_consistent(venv):
 
 
 # ---------------------------------------------------------------------------
-# every game steps sharded on the 8-device mesh (VERDICT r2 weak #6:
-# multi-device evidence used to cover maze only)
+# every game steps sharded on the 8-device mesh
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("game,kw", [

@@ -1,4 +1,4 @@
-"""Deliberately-fatal scripted runs: exact death-step parity (VERDICT r3 #4a).
+"""Deliberately-fatal scripted runs: exact death-step parity.
 
 The scripted return-parity suite pins seeds where bots avoid enemy
 contact, so hazard-death semantics were only covered by per-game unit

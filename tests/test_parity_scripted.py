@@ -1,4 +1,4 @@
-"""Scripted bit-exact return parity for the non-maze games (VERDICT r2 #1).
+"""Scripted bit-exact return parity for the non-maze games.
 
 For each game, oracle-pinned reference levels (tools/reference_levels,
 driven by the mt19937 oracle) are played by scripted/bot trajectories

@@ -1,4 +1,4 @@
-"""PNG asset overlay + recorded-fixture pixel diff (VERDICT.md next #5).
+"""PNG asset overlay + recorded-fixture pixel diff.
 
 The overlay is exercised against a synthetic assets/ tree (the real
 reference assets are not redistributed); the fixture diff is exercised
@@ -66,8 +66,8 @@ _has_real_assets = os.path.isdir(REAL_ASSETS)
 @pytest.mark.skipif(not _has_real_assets, reason="reference assets absent")
 def test_default_mapping_resolves_against_real_tree():
     """Every mapped path must exist in the actual reference assets tree
-    (a typo'd path silently falls back to procedural art otherwise —
-    VERDICT r2 missing #5). The tree is read-only data; load sites it
+    (a typo'd path silently falls back to procedural art otherwise).
+    The tree is read-only data; load sites it
     must match: e.g. games/coinrun/coinrun.cpp:296-300, games/coinrun/
     tilemap.cpp:11-36."""
     missing = [
@@ -125,7 +125,7 @@ def test_fixture_roundtrip_with_terminating_episode(tmp_path):
     (terminal +10 step, terminal frame recorded), then keeps stepping
     into episode 2. Replay must agree 100% on rewards/terminations and
     bit-exactly on pixels, including the terminal frame — the episode
-    semantics VERDICT r2 found broken (`step_raw` + explicit resets,
+    semantics once found broken (`step_raw` + explicit resets,
     tools/difference.py:_engine_replay)."""
     import jax
     import jax.numpy as jnp

@@ -1,9 +1,10 @@
-"""Scene kernel (render/scene_kernel.py) + phase machinery tests.
+"""Scene compositor (render/scene.py) + phase machinery tests.
 
-The Mosaic kernel must agree with its jnp mirror exactly (same blend
-order, same bf16 math), and the quantized coinrun scene path must agree
-with the exact per-env-camera renderer wherever the camera already sits
-on the quantization grid (there the phase decomposition is lossless).
+`composite_scene` must agree with a float64 numpy oracle of its
+semantics (tile entries, then painter-order stamps), and the quantized
+coinrun scene path must agree with the exact per-env-camera renderer
+wherever the camera already sits on the quantization grid (there the
+phase decomposition is lossless).
 """
 import jax
 import jax.numpy as jnp
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 
 from procgen2_tpu.render import phases as phases_lib
-from procgen2_tpu.render import scene_kernel
+from procgen2_tpu.render import scene as scene_lib
 
 
 def _random_scene(key, N=8, obs=64, qp=4, ne=5):
@@ -41,42 +42,76 @@ def _random_scene(key, N=8, obs=64, qp=4, ne=5):
     return X, p, theme, tb, kinds, themes, groups
 
 
-def test_scene_kernel_matches_reference():
+def _np_scene(X, p, theme, tb, kinds, themes, groups, obs=64):
+    """float64 numpy oracle of composite_scene: tile entries, then every
+    stamp group slot by slot in painter order, each stamp blended over
+    the frame; out-of-range variants and off-frame texels draw
+    nothing."""
+    X, tb = np.asarray(X, np.float64), np.asarray(tb, np.float64)
+    img, G = X[:, 1:4].copy(), X[:, 0]
+    theme = np.asarray(theme)
+    for i, (kv, tv) in enumerate(zip(kinds, themes)):
+        t = tb[np.asarray(p), i]  # [N, 4, obs, obs]
+        m = G == kv
+        if tv >= 0:
+            m = m & (theme == tv)[:, None, None]
+        img = np.where(m[:, None], img * (1 - t[:, 3:4]) + t[:, :3], img)
+    for bank, var, scale, r0, c0 in groups:
+        bank = np.asarray(bank, np.float64)
+        var, scale = np.asarray(var), np.asarray(scale, np.float64)
+        r0, c0 = np.asarray(r0), np.asarray(c0)
+        V, _, P, _ = bank.shape
+        for k in range(var.shape[1]):
+            for n in range(var.shape[0]):
+                v = var[n, k]
+                if not 0 <= v < V:
+                    continue
+                patch = bank[v] * scale[n, k]
+                r, c = r0[n, k], c0[n, k]
+                ra, rb = max(r, 0), min(r + P, obs)
+                ca, cb = max(c, 0), min(c + P, obs)
+                if ra >= rb or ca >= cb:
+                    continue
+                w = patch[:, ra - r:rb - r, ca - c:cb - c]
+                img[n, :, ra:rb, ca:cb] = (
+                    img[n, :, ra:rb, ca:cb] * (1 - w[3:4]) + w[:3])
+    return img
+
+
+@pytest.mark.parametrize("P", [8, 12, 28])
+def test_composite_scene_painter_order(P):
+    """Overlapping stamps blend over each other in slot order (the
+    painter's algorithm, renderer.cpp:5-101), after the tile entries."""
+    X, p, theme, tb, kinds, themes, _ = _random_scene(
+        jax.random.key(31 + P))
+    ks = jax.random.split(jax.random.key(P), 5)
+    N, K, V = X.shape[0], 4, 3
+    bank = jax.random.uniform(ks[0], (V, 4, P, P), minval=0.1, maxval=0.9)
+    bank = bank.at[:, :3].mul(200.0).astype(jnp.bfloat16)
+    var = jax.random.randint(ks[1], (N, K), 0, V)
+    scale = jnp.where(jax.random.uniform(ks[2], (N, K)) < 0.25, 0.0, 1.0)
+    r0 = jax.random.randint(ks[3], (N, K), -P, 64 + 2)
+    c0 = jax.random.randint(ks[4], (N, K), -P, 64 + 2)
+    # force overlaps so painter ORDER is actually exercised
+    r0 = r0.at[:, 1].set(r0[:, 0] + 2)
+    c0 = c0.at[:, 1].set(c0[:, 0] + 2)
+    groups = [(bank, var, scale, r0, c0)]
+    got = scene_lib.composite_scene(X, p, theme, tb, kinds, themes,
+                                    groups, 64)
+    want = _np_scene(X, p, theme, tb, kinds, themes, groups)
+    # bf16 blend chains vs the float64 oracle
+    np.testing.assert_allclose(np.float32(got), want, atol=4.0, rtol=0.02)
+
+
+def test_composite_scene_random_scene_matches_oracle():
+    """Themed tile entries plus two stamp groups with out-of-range
+    variants and edge-crossing offsets."""
     X, p, theme, tb, kinds, themes, groups = _random_scene(
         jax.random.key(0))
-    got = scene_kernel.scene_tpu(
-        X, p, theme, tb, kinds, themes, groups, 64, interpret=True)
-    want = scene_kernel.scene_reference(
-        X, p, theme, tb, kinds, themes, groups, 64)
-    # identical bf16 blend chains -> bitwise equality
-    np.testing.assert_array_equal(np.asarray(got, np.float32),
-                                  np.asarray(want, np.float32))
-
-
-def test_scene_kernel_raw_matches_mirror(monkeypatch):
-    """The in-kernel window extraction + MXU phase expansion
-    (scene_tpu_raw, interpret mode) must reproduce the jnp mirror path
-    of coinrun's _observe_scene bit-exactly."""
-    from procgen2_tpu import make
-    from procgen2_tpu.games import coinrun
-    from procgen2_tpu.render import compositor, scene_kernel as sk
-
-    env = make("coinrun")
-    bank = env.generate_bank(jax.random.key(7), num_levels=8)
-    state, _ = env.reset(bank, jax.random.key(8), num_envs=8)
-    for _ in range(2):
-        state, _ = env._step(bank, state, jnp.full((8,), 8, jnp.int32))
-    g = state.game
-
-    want = coinrun._observe_scene(env.cfg, g)  # CPU mirror path
-
-    orig = sk.scene_tpu_raw
-    monkeypatch.setattr(compositor, "_use_stamp_kernel", lambda: True)
-    monkeypatch.setattr(
-        sk, "scene_tpu_raw",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    got = coinrun._observe_scene(env.cfg, g)  # interpret kernel path
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    got = scene_lib.composite_scene(X, p, theme, tb, kinds, themes,
+                                    groups, 64)
+    want = _np_scene(X, p, theme, tb, kinds, themes, groups)
+    np.testing.assert_allclose(np.float32(got), want, atol=4.0, rtol=0.02)
 
 
 def test_phase_tables_reconstruct_sampling():

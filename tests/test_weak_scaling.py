@@ -1,4 +1,4 @@
-"""Weak-scaling smoke on the virtual CPU mesh (docs/SCALING.md §4).
+"""Weak-scaling smoke on the virtual CPU mesh (docs/SCALING.md §3).
 
 This measures *program structure*, not hardware throughput: growing the
 mesh 1 -> 8 devices with per-device batch held fixed must (a) leave
